@@ -1,7 +1,7 @@
 // ffmpeg_decoder: dlopen'd libavformat/libavcodec/libavutil decode path.
 //
 // Covers the container/codec tail the bespoke decoders don't: m4a/AAC, mp4,
-// wma, aiff, anything else ffmpeg knows — the TPU-native analogue of the
+// wma, aiff, anything else ffmpeg knows — the batch pipeline's analogue of the
 // reference's symphonia "decode any format" layer
 // (/root/reference/examples/analyze_file.rs:25-180, which handles
 // mp3/flac/wav/ogg/m4a and every sample format). Like the mpg123/vorbis
@@ -10,7 +10,7 @@
 //
 // Types come from the system ffmpeg headers (lavf 59 / lavc 59 / lavu 57,
 // ffmpeg 5.x); the dlopen targets pin the same major versions so struct
-// layouts match.
+// layouts match. Without the headers the file compiles to stubs.
 //
 // Also exposes a minimal mono AAC/m4a encoder (ffmpeg_encode_m4a) used ONLY
 // by the fixture generator: the environment has no other way to produce an
@@ -22,6 +22,17 @@
 #include <dlfcn.h>
 #include <mutex>
 #include <vector>
+
+#if defined(STRATUM_NO_FFMPEG) || !__has_include(<libavcodec/avcodec.h>)
+// Built without the ffmpeg headers (a host with no libav*-dev; tests force
+// it with -DSTRATUM_NO_FFMPEG): the library still loads, and the ffmpeg
+// formats report "unavailable" (return 7) as they do when the shared
+// libraries are missing at run time.
+bool ffmpeg_available() { return false; }
+int ffmpeg_decode_file(const char*, std::vector<float>*, int*, int*) { return 7; }
+int ffmpeg_encode_audio(const char*, const char*, const float*, int64_t, int) { return 7; }
+int ffmpeg_encode_m4a(const char*, const float*, int64_t, int) { return 7; }
+#else
 
 extern "C" {
 #include <libavcodec/avcodec.h>
@@ -362,3 +373,5 @@ int ffmpeg_encode_m4a(const char* path, const float* mono, int64_t n,
                       int sample_rate) {
   return ffmpeg_encode_audio(path, nullptr, mono, n, sample_rate);
 }
+
+#endif  // STRATUM_NO_FFMPEG || !__has_include(<libavcodec/avcodec.h>)

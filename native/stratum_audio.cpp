@@ -1,6 +1,6 @@
 // stratum_audio: native audio decode + batch loading runtime.
 //
-// TPU-native replacement for the reference's host-side decode layer
+// Batch-pipeline replacement for the reference's host-side decode layer
 // (symphonia in examples/analyze_file.rs:25-180 and the rayon batch pool in
 // examples/analyze_batch.rs:239-262): a C++ library that decodes WAV (own
 // RIFF parser, all common sample formats), FLAC (own from-scratch decoder,

@@ -1,16 +1,15 @@
 #!/usr/bin/env python
 """Two-process ``jax.distributed`` smoke test on CPU (multi-host runbook).
 
-No multi-host TPU hardware exists in this environment, so the multi-host
-path is validated the honest way available: two OS processes, each owning 4
+The multi-host path is validated without a cluster: two OS processes, each owning 4
 virtual CPU devices, joined by ``jax.distributed.initialize`` into one
 8-device ``tracks`` mesh. Per-process shards are assembled with
 ``jax.make_array_from_process_local_data`` and the FULL analysis pipeline
 runs as one SPMD program across both processes; process 0 checks the BPM
 outputs of ITS addressable shards against expectations.
 
-On a real multi-host TPU pod the only changes are: drop the env forcing
-(libtpu discovers devices), and initialize() with the pod's coordinator
+On real GPU hosts the only changes are: drop the env forcing (each process
+sees its local GPUs), and initialize() with the cluster's coordinator
 address — the mesh/sharding/pipeline code is identical (SURVEY §2.3 item 4).
 
 Run: python scripts/multihost_smoke.py            # parent, spawns 2 workers

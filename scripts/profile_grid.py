@@ -96,8 +96,7 @@ def main():
     timeit(jax.jit(lambda t, v: variation.compact_sorted(t, v)), refined.times, refined.valid, label="  compact_sorted")
 
     em = jnp.asarray(rng.random((b, max_beats)), jnp.float32)
-    from stratum_dsp_tpu.ops.viterbi_pallas import viterbi_decode
-    timeit(jax.jit(lambda e: viterbi_decode(e)), em, label="  viterbi_pallas")
+    timeit(jax.jit(hmm.viterbi_decode), em, label="  viterbi_decode")
     qt = jnp.asarray(rng.random((b, max_beats)) * 180.0, jnp.float32)
     timeit(jax.jit(lambda q, o, v: hmm.nearest_onset_distance(q, o, v)), qt, ot_j, ov_j, label="  nearest_onset_distance")
 

@@ -1,8 +1,8 @@
-"""stratum_dsp_tpu: TPU-native music-analysis DSP framework.
+"""stratum_dsp_tpu: batch-first music-analysis DSP framework in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the
+A JAX/XLA implementation of the capabilities of the
 stratum-dsp Rust reference (BPM + key + beat grid for DJ applications),
-designed batch-first for TPU: padded [B, T] track batches, static shapes,
+designed batch-first for accelerators: padded [B, T] track batches, static shapes,
 masked variable lengths, pjit/shard_map scale-out.
 """
 

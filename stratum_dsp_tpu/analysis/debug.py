@@ -5,7 +5,7 @@ Mirror of the reference's targeted ``eprintln!`` candidate dumps gated by
 (``src/lib.rs:461-487``, ``multi_resolution.rs:276-405``), which the
 validation harness captures from stderr for octave-error triage.
 
-The TPU pipeline cannot print from inside jit, so the batched pipeline emits
+The jitted pipeline cannot print from inside jit, so the batched pipeline emits
 the ambiguity-gate signal arrays (``dbg_*``) plus the candidate table when
 ``cfg.debug_track_id`` is set, and this module formats them per track on the
 host after the batch returns.

@@ -1,6 +1,6 @@
 """Batched analysis orchestrator.
 
-TPU-native mirror of the reference's ``analyze_audio`` (``src/lib.rs:86-1634``)
+Batched mirror of the reference's ``analyze_audio`` (``src/lib.rs:86-1634``)
 over a padded ``[B, T]`` track batch: preprocessing -> onsets -> streamed
 spectral features -> dual tempogram (+ masked multi-resolution escalation and
 optional percussive fallback) -> legacy fallback/fusion -> beat grid -> key
@@ -8,8 +8,8 @@ optional percussive fallback) -> legacy fallback/fusion -> beat grid -> key
 
 The reference's data-dependent escalation becomes unconditional-but-masked
 computation: every track pays for the multi-res pass (when the config enables
-it) and a per-track select picks base vs escalated — on TPU the extra FLOPs
-are cheaper than divergence (SURVEY §3.5).
+it) and a per-track select picks base vs escalated — on an accelerator the
+extra FLOPs are cheaper than divergence (SURVEY §3.5).
 
 Everything here is jittable with ``cfg`` (hashable dataclass) and ``caps``
 static.
@@ -110,10 +110,10 @@ def analyze_batch_arrays(
 
     # --- Phase 1A: preprocessing (lib.rs:112-147) ---
     if cfg.enable_normalization:
-        # LUFS K-weighting stays f32 even when stft_bf16 is on: the bf16
-        # measurement pass was perf-FLAT end-to-end (BENCH_NOTES round 4),
-        # so there is no reason to carry its ~0.02 dB LUFS drift vs the f32
-        # reference path (normalization.rs:185-259).
+        # LUFS K-weighting stays f32 even when stft_bf16 is on: the filter
+        # is a small share of the pipeline, so there is no reason to carry
+        # the bf16 pass's ~0.02 dB LUFS drift vs the f32 reference path
+        # (normalization.rs:185-259).
         samples, _norm_meta = norm.normalize(
             samples, lengths, cfg.normalization, sample_rate,
             target_loudness_lufs=-14.0, max_headroom_db=1.0,

@@ -37,8 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("paths", nargs="+", help="audio files")
     p.add_argument("-o", "--output", default="-", help="JSONL output path (default stdout)")
     p.add_argument("--batch-size", type=int, default=40,
-                   help="tracks per device batch (40 = the measured v5e "
-                        "throughput knee; see BENCH_NOTES.md)")
+                   help="tracks per device batch (40: untuned on the H100)")
     p.add_argument("--target-sample-rate", type=int, default=44100)
     p.add_argument("--decode-threads", type=int, default=0, help="0 = CPU count - 1")
     p.add_argument("--max-onsets", type=int, default=2048)
@@ -63,7 +62,7 @@ def bucket_for(n_samples: int, sr: int, buckets=DEFAULT_BUCKETS) -> int:
 def main(argv=None) -> int:
     from .. import compile_cache
 
-    compile_cache.enable()  # persistent XLA cache + honor JAX_PLATFORMS=cpu
+    compile_cache.enable()
     args = build_parser().parse_args(argv)
     if args.verbose:
         logging.basicConfig(

@@ -19,7 +19,21 @@ import numpy as np
 
 from ..analysis import PipelineCaps, analyze_batch, decode_results
 from ..io.decode import MIX_AVERAGE, MIX_DOMINANT, decode_file
+from .analyze_batch import DEFAULT_BUCKETS, bucket_for
 from .args import add_config_flags, config_from_args
+
+BUCKETS = DEFAULT_BUCKETS
+
+
+def padded_length(n_samples: int, sr: int) -> int:
+    """Length the track is zero-padded to: the batch CLI's bucket, or for a
+    track longer than the largest bucket the next multiple of it. One
+    compiled program per bucket, not one per track length (a full-pipeline
+    GPU compile takes minutes); the track itself is never cut."""
+    top = int(BUCKETS[-1] * sr)
+    if n_samples <= top:
+        return bucket_for(n_samples, sr, BUCKETS)
+    return -(-n_samples // top) * top
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     from .. import compile_cache
 
-    compile_cache.enable()  # persistent XLA cache + honor JAX_PLATFORMS=cpu
+    compile_cache.enable()
     args = build_parser().parse_args(argv)
     if args.verbose:
         logging.basicConfig(
@@ -69,7 +83,9 @@ def main(argv=None) -> int:
     caps = PipelineCaps(max_onsets=args.max_onsets, max_beats=args.max_beats)
     from ..analysis.timing import analyze_batch_timed
 
-    out = analyze_batch_timed(samples[None, :], np.asarray([len(samples)]), cfg, sr, caps)
+    padded = np.zeros((1, padded_length(len(samples), sr)), np.float32)
+    padded[0, : len(samples)] = samples
+    out = analyze_batch_timed(padded, np.asarray([len(samples)]), cfg, sr, caps)
     result = decode_results(out, sr)[0]
     # total incl. decode + host assembly (lib.rs:91-92 semantics)
     result.metadata.processing_time_ms = (time.time() - t0) * 1000.0

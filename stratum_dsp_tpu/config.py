@@ -1,9 +1,9 @@
 """Analysis configuration.
 
-TPU-native mirror of the reference's ``AnalysisConfig`` (stratum-dsp
+Mirror of the reference's ``AnalysisConfig`` (stratum-dsp
 ``src/config.rs:8-744``). The config is a *hashable frozen dataclass* so it can
 be passed as a static argument to ``jax.jit``: every ``enable_*`` flag selects
-code paths at **trace time**, which is the TPU-native replacement for the
+code paths at **trace time**, which is the compiled-program replacement for the
 reference's runtime branches — the compiled program contains exactly the
 enabled pipeline, with no data-dependent control flow.
 
@@ -112,11 +112,15 @@ class AnalysisConfig:
     # --- STFT (config.rs:231-236) ---
     frame_size: int = 2048
     hop_size: int = 512
-    # TPU-only extension (no reference counterpart): run the MXU DFT matmuls
-    # with bf16 inputs + f32 accumulation. ~4x the f32 MXU rate on v5e; the
-    # ~2^-9 relative input rounding is far below the decision margins of
-    # every downstream discrete estimate (BPM family, key, beat phase) —
-    # asserted end-to-end by tests/test_stft.py::test_bf16_pipeline_parity.
+    # Extension (no reference counterpart). Selects the key STFT's
+    # formulation only; every other STFT is the f32 rfft either way. True:
+    # the key STFT (8192/512) takes the polyphase shared-block path
+    # (ops/stft.py) with bf16 stage inputs + f32 accumulation and a periodic
+    # Hann window; the ~2^-9 relative rounding is far below the decision
+    # margins of every downstream discrete estimate (BPM family, key, beat
+    # phase) — asserted end-to-end by
+    # tests/test_stft.py::test_bf16_pipeline_parity. False: the key STFT is
+    # the f32 symmetric-Hann rfft like the rest.
     stft_bf16: bool = True
     # Extension (no reference counterpart), default ON: replace the beat
     # grid's first-detected-onset phase anchor (hmm.rs:241-249) with a
@@ -202,10 +206,10 @@ class AnalysisConfig:
     key_mode_flip_min_score_ratio: float = 0.60
     enable_key_hpcp: bool = True
     key_hpcp_peaks_per_frame: int = 24
-    # TPU-only knob (no reference analogue): select the top-K spectral peaks
-    # with the hardware-accelerated approximate top-k (O(n), recall ~0.95+)
-    # instead of an exact sort (O(n log^2 n) bitonic — the hottest op of the
-    # key path). Harmonic summation is order-independent, so only rare
+    # Extension (no reference analogue): select the top-K spectral peaks
+    # with a threshold search (O(n), recall ~0.95+) instead of an exact sort
+    # (O(n log^2 n) bitonic — the hottest op of the key path). Harmonic
+    # summation is order-independent, so only rare
     # borderline-peak set differences can change the HPCP. False = exact.
     key_hpcp_approx_peaks: bool = True
     key_hpcp_num_harmonics: int = 4

@@ -1,6 +1,6 @@
 """Error types (mirror of reference ``src/error.rs:7-22``).
 
-In the batched TPU pipeline, per-track failures cannot abort the batch; they
+In the batched pipeline, per-track failures cannot abort the batch; they
 degrade gracefully exactly like the reference's ``Result`` downgrades
 (``lib.rs:894-899, 932-943, 1542-1551``): failed stages produce zeroed outputs
 plus warning flags. These exceptions are raised only for host-side validation

@@ -45,11 +45,6 @@ def detect_downbeats(
     mb = times.shape[-1]
     slot_valid = jnp.arange(mb)[None, :] < n_beats[:, None]
 
-    if jax.default_backend() == "tpu":
-        from ...ops.downbeats_pallas import downbeat_mask
-
-        return downbeat_mask(times, n_beats, bar)
-
     def step(carry, inp):
         last_db, any_db = carry
         t, ok = inp
@@ -116,7 +111,7 @@ def search_phase_anchor(
     anchors = start[:, None] + offs[None, :] * interval[:, None]  # [B, P]
     # sample every 4th beat: phase scoring is statistical (>=110 samples on
     # a 3-min track), and the [B, P, K] gather is the stage's whole cost
-    # (measured 10.7 -> ~3 ms/batch at stride 4, identical battery grids)
+    # (stride 4 leaves every battery grid unchanged)
     k = jnp.arange(max_beats // 4, dtype=jnp.float32) * 4.0  # [MB/4]
     grid = anchors[:, :, None] + k[None, None, :] * interval[:, None, None]
     fidx = jnp.round(grid * frame_rate).astype(jnp.int32)  # [B, P, MB]
@@ -282,7 +277,7 @@ def fit_grid_drift(
     # iterations or STRIDED slots lose the swing family's rescue). The fit
     # runs on the first 256 slots — dense slots are what annealing needs;
     # 256 beats span 90-180 s at production tempos, and the matching
-    # searchsorted is the fit's whole device cost (22 -> ~6 ms/batch).
+    # searchsorted is the fit's whole device cost.
     windows = (0.12, 0.10, 0.07, 0.05)
     k = k[: min(max_beats, 256)]
     for it in range(n_iter):

@@ -7,7 +7,7 @@ Mirror of reference ``beat_tracking/hmm.rs``: a 5-state tempo HMM
 frames with emission > 0.1 with confidence 0.7·emission + 0.3·alignment
 (hmm.rs:383-441).
 
-TPU notes:
+Batching notes:
 
 * Beat frames are a fixed-capacity grid ``[B, MAX_BEATS]`` at the *nominal*
   beat interval anchored at the first onset; per-track frame counts mask the
@@ -77,6 +77,35 @@ def nearest_onset_distance(query_times: jax.Array, onset_times: jax.Array, onset
     return jax.vmap(per_row)(query_times, sorted_onsets, n_valid)
 
 
+def viterbi_decode(emission: jax.Array) -> jax.Array:
+    """Most likely state path ``[B, T] int32`` for state-independent
+    emissions ``[B, T]`` (hmm.rs:308-375): multiplicative f32 forward pass
+    with a uniform prior, first-index argmax on ties, then backtrack."""
+    b, t = emission.shape
+    trans = transition_matrix()  # [S, S]
+    em_t = jnp.broadcast_to(emission[:, :, None], (b, t, NUM_STATES))
+
+    def fwd(carry, em):
+        # carry: [B, S] best path prob; em: [B, S]
+        scores = carry[:, :, None] * trans[None, :, :]  # [B, prev, s]
+        best_prev = jnp.argmax(scores, axis=1)  # [B, S]
+        best_prob = jnp.max(scores, axis=1)
+        return best_prob * em, best_prev
+
+    init = jnp.full((b, NUM_STATES), 1.0 / NUM_STATES) * em_t[:, 0]
+    last_probs, backptrs = jax.lax.scan(fwd, init, jnp.moveaxis(em_t[:, 1:], 1, 0))
+    final_state = jnp.argmax(last_probs, axis=-1)  # [B]
+
+    def back(state, bp):
+        prev = jnp.take_along_axis(bp, state[:, None], axis=-1)[:, 0]
+        return prev, prev
+
+    _, rev_states = jax.lax.scan(back, final_state, jnp.flip(backptrs, axis=0))
+    return jnp.concatenate(
+        [jnp.flip(jnp.moveaxis(rev_states, 0, 1), axis=1), final_state[:, None]], axis=1
+    )
+
+
 @functools.partial(jax.jit, static_argnums=(3, 6))
 def track_beats(
     bpm: jax.Array,
@@ -128,37 +157,8 @@ def track_beats(
     emission = jnp.where(frame_valid, emission, 0.0)
 
     # Viterbi (multiplicative, f32, like the reference; emissions are
-    # state-independent so this only determines the reported state sequence).
-    # On TPU the decode runs as a single Pallas kernel (ops/viterbi_pallas);
-    # elsewhere as the equivalent lax.scan.
-    if jax.default_backend() == "tpu":
-        from ...ops.viterbi_pallas import viterbi_decode
-
-        states = viterbi_decode(emission)
-    else:
-        trans = transition_matrix()  # [S, S]
-        em_t = jnp.broadcast_to(emission[:, :, None], (b, max_beats, NUM_STATES))
-
-        def fwd(carry, em):
-            # carry: [B, S] best path prob; em: [B, S]
-            scores = carry[:, :, None] * trans[None, :, :]  # [B, prev, s]
-            best_prev = jnp.argmax(scores, axis=1)  # [B, S]
-            best_prob = jnp.max(scores, axis=1)
-            new = best_prob * em
-            return new, best_prev
-
-        init = jnp.full((b, NUM_STATES), 1.0 / NUM_STATES) * em_t[:, 0]
-        last_probs, backptrs = jax.lax.scan(fwd, init, jnp.moveaxis(em_t[:, 1:], 1, 0))
-        final_state = jnp.argmax(last_probs, axis=-1)  # [B]
-
-        def back(state, bp):
-            prev = jnp.take_along_axis(bp, state[:, None], axis=-1)[:, 0]
-            return prev, prev
-
-        _, rev_states = jax.lax.scan(back, final_state, jnp.flip(backptrs, axis=0))
-        states = jnp.concatenate(
-            [jnp.flip(jnp.moveaxis(rev_states, 0, 1), axis=1), final_state[:, None]], axis=1
-        )  # [B, MB]
+    # state-independent so this only determines the reported state sequence)
+    states = viterbi_decode(emission)
 
     supported = frame_valid & (emission > EMISSION_THRESHOLD)
     if fill:

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 EPSILON = 1e-10
 BIG = 1e9
+TIE_EPS = 1e-4
 
 FOUR_FOUR, THREE_FOUR, SIX_EIGHT = 0, 1, 2
 # tuple, not jnp array: a module-level device constant would initialize
@@ -62,7 +63,14 @@ def detect_time_signature(times: jax.Array, valid: jax.Array, n_beats: jax.Array
         scores.append(score)
     scores = jnp.stack(scores, axis=-1)  # [B, 3]
 
-    best = jnp.argmax(scores, axis=-1).astype(jnp.int32)
+    # Tie-stable pick: on a filled, drift-fitted lattice the beat intervals
+    # are constant up to f32 dust, all three hypotheses score ~1.0, and a
+    # plain argmax would pick by the dust — which differs between CPU and GPU
+    # reduction orders. Scores within TIE_EPS of the best are tied and the
+    # first hypothesis (4/4, the reference's order and its fallback) wins.
+    best = jnp.argmax(
+        scores >= jnp.max(scores, axis=-1, keepdims=True) - TIE_EPS, axis=-1
+    ).astype(jnp.int32)
     conf = jnp.clip(jnp.max(scores, axis=-1), 0.0, 1.0)
 
     fallback = n_beats < 8

@@ -1,11 +1,11 @@
 """Chroma / HPCP extraction and key-path spectrogram conditioning.
 
-TPU-native re-design of reference ``chroma/extractor.rs``:
+Batched re-design of reference ``chroma/extractor.rs``:
 
 * **Chroma mapping is a matmul**: the bin -> pitch-class circular-Gaussian
   soft mapping (extractor.rs:393-487) is a fixed ``[K, 12]`` projection for a
   given (sample_rate, fft_size, sigma, tuning); chroma = compressed-mags @ W
-  on the MXU, then per-frame L2.
+  as one matmul, then per-frame L2.
 * **HPCP is vectorized peak algebra** (extractor.rs:556-680): local-max mask
   -> ``lax.top_k`` peaks -> harmonic fan-out (K_top × H × 3 pitch-class
   neighbors) -> one-hot scatter into 12 bins.
@@ -167,7 +167,7 @@ def hpcp_harmonic_matrix(
     class c across all harmonics and the 3 circular-Gaussian neighbors
     (extractor.rs:582-680). Because the fan-out depends only on the bin
     index (f0 = k * fres), the whole per-peak harmonic algebra collapses to
-    ``masked_peak_weights @ M`` — one MXU matmul instead of per-frame
+    ``masked_peak_weights @ M`` — one matmul instead of per-frame
     gathers + transcendentals + one-hot scatters."""
     fres = sample_rate / fft_size
     m = np.zeros((hi_bin, 12), dtype=np.float32)
@@ -250,7 +250,7 @@ def frames_to_hpcp(
     """HPCP [..., 12] from magnitudes [..., K] (frame_to_hpcp_tuned_band,
     extractor.rs:528-680). ``tuning_offset`` may be a traced scalar (it only
     shifts semitone positions). ``approx_peaks`` selects the top-K peak SET
-    with the TPU's hardware approximate top-k instead of an exact sort —
+    with a threshold search instead of an exact sort —
     harmonic summation is order-independent, so only the membership of
     borderline peaks can differ (recall >= ~0.95 per k)."""
     n_bins = spec.shape[-1]
@@ -287,11 +287,10 @@ def frames_to_hpcp(
 
     if approx_peaks and k_top <= half_w:
         # Threshold formulation: bisect for tau ~= the k-th largest peak
-        # value (12 fused count-compare passes, measured ~free inside the
-        # streamed reducer vs +60 ms/batch for approx_max_k and +25 ms for
-        # a full sort), select every peak >= tau by MASK, and collapse the
+        # value (12 fused count-compare passes, cheaper inside the streamed
+        # reducer than approx_max_k or a full sort), select every peak >= tau by MASK, and collapse the
         # whole per-peak harmonic fan-out (gathers + per-frame log2/mod/exp
-        # + one-hot scatters) into ONE [.., hi_bin] @ [hi_bin, 12] MXU
+        # + one-hot scatters) into ONE [.., hi_bin] @ [hi_bin, 12]
         # matmul against the precomputed harmonic projection. tau converges
         # to within vmax/2^20 below the true k-th value, so the selected
         # set is the exact top-k plus any peaks tied within that sliver
@@ -327,9 +326,8 @@ def frames_to_hpcp(
 
     # Exact path (approx_peaks=False): reference-faithful top-k selection.
     # Sorting (vals, raw, bin) jointly replaces top_k + a take_along_axis
-    # gather — the combination was the single hottest op pair of the key
-    # path on TPU before the threshold/matmul path above superseded it as
-    # the production default.
+    # gather — the combination was the hottest op pair of the key path
+    # before the threshold/matmul path above became the default.
     if hi_bin % 2:
         peak_vals = jnp.pad(peak_vals, [(0, 0)] * (peak_vals.ndim - 1) + [(0, 1)],
                             constant_values=-jnp.inf)
@@ -409,20 +407,15 @@ def windowed_time_mean(spec: jax.Array, fvalid: jax.Array, margin: int) -> jax.A
     (smooth_spectrogram_time, extractor.rs:1246-1290). ``spec [..., T, K]``
     with invalid frames zeroed, ``fvalid [..., T]``.
 
-    The box sum runs as one banded matmul on the MXU (a frame-axis cumsum
-    here cost ~20 ms/batch in O(log T) HBM passes; re-tiling into 128-frame
-    margin-extended tiles to shave the ~97%-zero band was also measured and
-    LOSES ~1.2 tracks/s — the overlapping-tile copies cost more than the
-    spare MXU cycles they save). HIGH precision keeps it within ~1e-6 of
-    the f32 sum."""
+    The box sum runs as one banded matmul (a frame-axis cumsum costs
+    O(log T) passes over the stream; re-tiling into 128-frame
+    margin-extended tiles to shave the ~97%-zero band copies more than it
+    saves). HIGH is TF32 on the GPU (~1e-3 relative on each input), f32 on
+    the CPU; the counts are exact either way."""
     if margin <= 0:
         return spec
     t = spec.shape[-2]
     w = _box_band_matrix(t, margin)
-    # Round-5 re-measurements (B=40, real chip, isolated stft_plus_mask):
-    # HIGH -> DEFAULT precision is FLAT (76.1 vs 75.1 ms — the band matmul
-    # is HBM-bound, not MXU-bound) and a prefix-sum formulation LOSES big
-    # (131 ms: O(log T) full-stream cumsum passes). The matmul stays.
     sums = jnp.einsum(
         "...tk,st->...sk", spec, w,
         preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGH,

@@ -52,7 +52,9 @@ def detect_key_weighted(
     scores = scoring.finalize_scores(raw)
 
     if cfg.enable_key_mode_heuristic or cfg.enable_key_minor_harmonic_bonus:
-        avg = jnp.einsum("...f,...fc->...c", w, chroma)
+        avg = jnp.einsum(
+            "...f,...fc->...c", w, chroma, precision=jax.lax.Precision.HIGHEST
+        )
         wsum = jnp.sum(w, axis=-1)
         key_idx, conf, scores = scoring.mode_heuristic(
             scores,
@@ -74,7 +76,8 @@ class SegmentPrefixes:
     def __init__(self, chroma, weights, frame_mask, templates):
         w = _weighted(chroma, weights, frame_mask)
         frame_scores = jnp.einsum(
-            "...fc,kc->...fk", chroma, templates, preferred_element_type=jnp.float32
+            "...fc,kc->...fk", chroma, templates, preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )
         z = lambda x: jnp.concatenate([jnp.zeros_like(x[..., :1, :]), jnp.cumsum(x, axis=-2)], axis=-2)
         self.p_scores = z(w[..., None] * frame_scores)  # [B, F+1, 24]

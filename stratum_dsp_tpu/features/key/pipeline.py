@@ -2,7 +2,7 @@
 frame weighting -> detection.
 
 Mirror of the orchestrator's key block (lib.rs:961-1559). The key STFT
-(default 8192/512, config.rs:686-689) streams through VMEM in frame chunks
+(default 8192/512, config.rs:686-689) streams in frame chunks
 with a ±margin halo so the harmonic time-mask / time smoothing see their full
 context; each chunk emits only [B, C, 12] chroma + [B, C] energies.
 """
@@ -28,18 +28,14 @@ EPSILON = 1e-12
 
 # Frame-chunk element budget for the streamed key STFT: bounds the
 # [B, chunk, frame_size] frames buffer so large batches don't OOM, while
-# keeping chunks big enough that the scan does not serialize the chip.
-# The budget doubles as the measured throughput optimum: at B=8 the best
-# key chunk is 512 (= the 60M cap is not binding), at B=16 the cap's 457
-# beats a raised-budget 512 (91.9 vs 88.5 tracks/s) — the knee follows the
-# TOTAL working set B*chunk*frame, not the chunk size alone.
+# keeping chunks big enough that the scan does not serialize the device.
+# The value was tuned on the previous accelerator and is untuned on the
+# H100; the knee follows the TOTAL working set B*chunk*frame, not the chunk
+# size alone.
 CHUNK_ELEMENT_BUDGET = 60_000_000
 
 
 def _auto_chunk(b: int, frame_size: int, requested: int) -> int:
-    # Re-swept round 5 after the bf16-S stream halving: raising the budget
-    # to 90M elements LOSES (134 -> 124 tracks/s) — the knee follows the
-    # total working set across ALL streams, not just this one. 60M stays.
     cap = max(CHUNK_ELEMENT_BUDGET // max(b * frame_size, 1), 128)
     return int(min(requested, cap))
 
@@ -65,8 +61,8 @@ def _condition_chunk(spec, fvalid, cfg: AnalysisConfig, halo: int):
 def _key_keep_bins(cfg: AnalysisConfig, sample_rate: int, frame_size: int):
     """Bins materialized by the key STFT: chroma/HPCP only read
     [100, 5000] Hz (extractor.rs:47-48), so the streamed pass keeps bins
-    [0, ceil(5000 Hz) + 2) — ~930 of 4097 at 8192/44.1k. This is a
-    TPU-native approximation in ONE place: the per-frame energy used for
+    [0, ceil(5000 Hz) + 2) — ~930 of 4097 at 8192/44.1k. This is an
+    approximation in ONE place: the per-frame energy used for
     frame weighting (lib.rs:1256-1287) sums the conditioned band instead of
     the full spectrum; the weights are median-normalized so only the
     (small, mostly-percussive) >5 kHz share is lost. The log-frequency

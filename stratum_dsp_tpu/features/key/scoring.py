@@ -37,9 +37,10 @@ CIRCLE_BONUS_WEIGHT = 0.20
 # EXACTLY 1.2 in exact arithmetic (detector.rs:135-243), so the mode
 # decision rides entirely on the tie-break: the reference's stable
 # descending sort over a majors-then-minors table (detector.rs:244-246).
-# f32 accumulation dust on TPU (~2e-7 relative, measured) would otherwise
-# break these ties at random per platform; scores within TIE_EPS of the
-# max are treated as tied and the FIRST index wins — far below any
+# f32 accumulation dust (~2e-7 relative; the score contractions run at
+# HIGHEST precision so GPU TF32 never enters) would otherwise break these
+# ties at random per platform; scores within TIE_EPS of the max are treated
+# as tied and the FIRST index wins — far below any
 # meaningful key separation (the 3rd-place score is typically >0.1 lower).
 TIE_EPS = 1e-4
 
@@ -69,7 +70,10 @@ def raw_scores(
     """Weighted sum-of-dots scores [..., 24] from chroma [..., F, 12]."""
     if weights is not None:
         chroma = chroma * weights[..., None]
-    return jnp.einsum("...fc,kc->...k", chroma, templates, preferred_element_type=jnp.float32)
+    return jnp.einsum(
+        "...fc,kc->...k", chroma, templates, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
 
 
 def finalize_scores(scores: jax.Array) -> jax.Array:

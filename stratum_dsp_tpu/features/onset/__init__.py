@@ -1,6 +1,6 @@
 """Onset detection: energy flux, spectral flux, HFC, HPSS, consensus voting.
 
-TPU-native design: onsets are fixed-capacity per-track tensors
+Design: onsets are fixed-capacity per-track tensors
 ``(positions [B, K] int32 samples, valid [B, K] bool)`` sorted by time, built
 from dense peak masks over the frame grid. The reference's Vec-based detectors
 live in ``src/features/onset/`` (energy_flux.rs, spectral_flux.rs, hfc.rs,

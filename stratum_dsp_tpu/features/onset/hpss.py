@@ -4,7 +4,7 @@ Mirror of reference ``onset/hpss.rs:71-243``: iterative refinement where the
 harmonic estimate is median-filtered across time, the percussive estimate
 across frequency, then both are soft-masked so H + P == |X|. The reference
 runs up to 10 iterations with an early-exit when max change < 1e-6
-(hpss.rs:158-170); on TPU we run the fixed iteration count — the early exit
+(hpss.rs:158-170); here we run the fixed iteration count — the early exit
 only skips iterations whose updates are below 1e-6 anyway, and fixed trip
 counts keep the program static.
 

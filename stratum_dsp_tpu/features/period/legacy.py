@@ -186,8 +186,7 @@ def comb_candidates(
 
     # k_idx is nondecreasing over the sorted onsets, so the k claimed by the
     # last hit before j is simply the running max of (hit ? k : -1) — a
-    # cummax instead of a [B, n_bpm, K] gather (XLA TPU gathers run ~1
-    # element/cycle; this one alone was ~10% of the whole pipeline).
+    # cummax instead of a [B, n_bpm, K] gather.
     k_hit = jnp.where(hit, k_idx, -1)
     k_prev = jnp.concatenate(
         [jnp.full_like(k_hit[..., :1], -1), jax.lax.cummax(k_hit, axis=2)[..., :-1]],
@@ -475,7 +474,7 @@ def coarse_to_fine_search(
     """Two-stage comb search (comb_filter.rs:256-327): coarse 2.0-BPM grid,
     then a 0.5-BPM grid of ±refinement_range around each track's coarse best.
 
-    TPU-native: the fine stage evaluates a per-track candidate set
+    Batched: the fine stage evaluates a per-track candidate set
     ``coarse_best + offsets`` (the reference re-grids from the best value);
     scoring reuses the comb alignment kernel with traced BPM values.
     """

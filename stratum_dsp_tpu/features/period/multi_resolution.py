@@ -8,9 +8,9 @@ support-ratio guardrails, pick per-candidate winners with margin-gated
 switching, dedup, then apply the post-hoc fold-down / fold-up and the
 phase-optimized triplet-family search on the hop-512 novelty.
 
-TPU design: the three hop passes run unconditionally for the whole batch
-(the reference only escalates ambiguous tracks — on TPU the extra FLOPs are
-cheaper than divergence; the orchestrator selects per track with a mask).
+Batched design: the three hop passes run unconditionally for the whole batch
+(the reference only escalates ambiguous tracks — on an accelerator the extra
+FLOPs are cheaper than divergence; the orchestrator selects per track with a mask).
 The phase search in ``beat_contrast_score`` evaluates ALL phases of ALL
 family candidates as one gather tensor instead of the reference's nested
 scalar loops.
@@ -177,9 +177,8 @@ def beat_contrast_score(
     # modular-class sum T0[m] = sum of mx over frames i < n_valid with
     # i mod p == m — each offset variant is a cyclic reindex of T0 minus at
     # most one boundary term (the class member below the offset, whose base
-    # would be negative). T0 itself is a chunked one-hot matmul on the MXU;
-    # the previous formulation was four [B, F, P, S] gathers (~2.2M indices
-    # each) which TPU executes at ~1 element/cycle.
+    # would be negative). T0 itself is a chunked one-hot matmul, in place of
+    # four [B, F, P, S] gathers of ~2.2M indices each.
     P = PHASE_CAP
     marr = jnp.arange(P)  # [P]
     CH = 2048
@@ -192,7 +191,10 @@ def beat_contrast_score(
         idx_c = jnp.asarray(np.arange(c * CH, (c + 1) * CH))  # [CH]
         lab = jnp.mod(idx_c[None, None, :], p[:, :, None])  # [B, F, CH]
         oh = (lab[..., None] == marr).astype(jnp.float32)  # [B, F, CH, P]
-        t0 = t0 + jnp.einsum("bc,bfcp->bfp", mxv[:, c * CH : (c + 1) * CH], oh)
+        t0 = t0 + jnp.einsum(
+            "bc,bfcp->bfp", mxv[:, c * CH : (c + 1) * CH], oh,
+            precision=jax.lax.Precision.HIGHEST,  # not TF32 on the GPU
+        )
     # class counts in closed form: |{i < n_valid : i mod p == m}|
     nv = n_valid[:, None, None]
     pb = p[:, :, None]

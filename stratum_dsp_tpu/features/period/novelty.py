@@ -1,12 +1,12 @@
 """Novelty-curve extraction (batched, streaming).
 
-TPU-native mirror of the reference ``features/period/novelty.rs``:
+Batched mirror of the reference ``features/period/novelty.rs``:
 SuperFlux (full-band + frequency sub-bands), energy flux, HFC, log-mel
 SuperFlux, and the weighted/conditioned combination.
 
 Architecture: instead of materializing spectrograms, a *reducer* plugged into
 ``ops.stft.stft_reduce`` emits tiny per-frame features while the STFT streams
-through VMEM in chunks:
+in chunks:
 
 * ``superflux``  [B, F, n_bands]  — max-filtered log-flux per band
   (novelty.rs:336-455; band max filter clamped inside the band)
@@ -106,8 +106,9 @@ def make_bpm_reducer(
         emit_stride2 = cfg.enable_tempogram_multi_resolution
 
     # Band energy/HFC as ONE [K, 2*n_bands] matmul over x^2 (differs from the
-    # sliced jnp.sum only in reduction order; HIGH = bf16x3 keeps ~f32-quality
-    # products at half the MXU passes of HIGHEST — 91.9 -> 93.3 tracks/s).
+    # sliced jnp.sum only in reduction order). These skinny products are
+    # memory-bound, so they run at HIGHEST: TF32 (the GPU's DEFAULT and HIGH)
+    # would move onset decisions away from the CPU's.
     ew = np.zeros((n_bins, 2 * len(active_bands)), np.float32)
     for i, (_, s, e, _) in enumerate(active_bands):
         ew[s:e, 2 * i] = 1.0
@@ -141,7 +142,7 @@ def make_bpm_reducer(
         sums = jnp.einsum(
             "bck,kj->bcj", d2_interior, jnp.asarray(sf_mask),
             preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGH,
+            precision=jax.lax.Precision.HIGHEST,
         )
         cols = [sums[..., i] for i in range(n_act)]
         for i, runs in edge_runs:
@@ -152,54 +153,6 @@ def make_bpm_reducer(
                 extra = extra + jnp.sum(d * d, axis=-1)
             cols[i] = cols[i] + extra
         return jnp.stack(cols, axis=-1)
-
-    # Fused Pallas path (OPT-IN, off by default): computes the whole
-    # per-chunk feature set — log1p, frequency max filter, both stride
-    # SuperFluxes, band/mel/HFC sums, onset flux — in one VMEM pass per
-    # frame tile (see ops/novelty_pallas.py). Measured on a real v5e chip
-    # it LOSES ~3% end-to-end vs the XLA reducer (70.3 -> 68.3 tracks/s,
-    # 16-rep streams): XLA already fuses this chain well, and the
-    # pallas_call boundary + HIGHEST-precision 128-col packed matmuls cost
-    # more than the saved HBM traffic (BENCH_NOTES.md round 3). Kept as an
-    # opt-in (STRATUM_FORCE_PALLAS_NOVELTY=1) with interpret-mode parity
-    # tests for future hardware where the balance may differ.
-    # STRATUM_PALLAS_NOVELTY_AUX=1 enables it only for auxiliary passes
-    # (no stride-2 / no onset flux — the multi-res hop-256 rerun) on TPU;
-    # ALSO measured negative (68.8 vs 71.9 tracks/s) — the loss is not
-    # specific to the full-output variant.
-    import os as _os
-
-    use_pallas_kernel = bool(_os.environ.get("STRATUM_FORCE_PALLAS_NOVELTY")) or (
-        bool(_os.environ.get("STRATUM_PALLAS_NOVELTY_AUX"))
-        and not emit_stride2
-        and not emit_onset_flux
-        and jax.default_backend() == "tpu"
-    )
-    if use_pallas_kernel:
-        from ...ops.novelty_pallas import fused_novelty_features, unpack_features
-
-        edge_bands = tuple(
-            (i, s, e) for i, (_, s, e, _) in enumerate(active_bands) if i > 0
-        )
-        interp = jax.default_backend() != "tpu"
-
-        def reducer(spec, fidx, fvalid, carry):
-            packed = fused_novelty_features(
-                spec.astype(jnp.float32), carry, sf_mask, ew, mel_np,
-                sf_k=sf_k, edge_bands=edge_bands, emit_stride2=emit_stride2,
-                emit_onset=emit_onset_flux, use_mel=use_mel,
-                interpret=interp,
-            )
-            outs = unpack_features(
-                packed, n_act, 0 if mel_np is None else mel_np.shape[1],
-                emit_stride2, emit_onset_flux, use_mel,
-            )
-            return outs, spec[:, -2:, :].astype(jnp.float32)
-
-        def carry_init(b):
-            return jnp.zeros((b, 2, n_bins), jnp.float32)
-
-        return reducer, carry_init, [name for (name, _, _, _) in active_bands]
 
     def reducer(spec, fidx, fvalid, carry):
         prev2_frames = carry  # [B, 2, K] previous two raw magnitude frames
@@ -230,7 +183,7 @@ def make_bpm_reducer(
         eh = jnp.einsum(
             "bck,kj->bcj", x2, jnp.asarray(ew),
             preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGH,
+            precision=jax.lax.Precision.HIGHEST,
         )  # [B, C, 2*n_bands]: (energy, hfc) interleaved per band
         energy = eh[..., 0::2]
         hfc = eh[..., 1::2]
@@ -249,7 +202,10 @@ def make_bpm_reducer(
             outs["superflux2"] = jnp.sqrt(_band_sf_sums(log_prev2, log_cur, d2f * d2f))
 
         if use_mel:
-            outs["mel"] = jnp.dot(log_cur, mel_w, preferred_element_type=jnp.float32)
+            outs["mel"] = jnp.dot(
+                log_cur, mel_w, preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
+            )
 
         if emit_onset_flux:
             # Onset spectral flux: per-frame max-normalize then HWR L2 diff

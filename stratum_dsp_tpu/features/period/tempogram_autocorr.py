@@ -4,7 +4,7 @@ Mirror of reference ``features/period/tempogram_autocorr.rs:79-178``: for each
 BPM hypothesis on the grid, the mean of ``novelty[i] * novelty[i + lag]`` with
 ``lag = floor(frame_rate / (bpm/60))``.
 
-TPU-native reformulation: the reference's O(N * n_bpm) scalar loop is exactly
+Batched reformulation: the reference's O(N * n_bpm) scalar loop is exactly
 the linear autocorrelation sampled at the (static) lag set, so we compute one
 zero-padded rFFT autocorrelation per track — ``ACF = irfft(|rfft(x)|^2)`` —
 and gather the lags. Identical values (to float rounding), O(N log N).

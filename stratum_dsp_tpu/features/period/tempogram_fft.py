@@ -4,7 +4,7 @@ Mirror of reference ``features/period/tempogram_fft.rs:78-236``: DC removal,
 Hann window over the novelty curve, zero-padded power spectrum, frequency
 bins -> BPM (Hz * 60) restricted to the BPM range.
 
-TPU notes: the FFT size is the static next power of two of the *padded*
+Batching notes: the FFT size is the static next power of two of the *padded*
 novelty length (the reference uses the per-track next power of two; a larger
 size only refines the BPM grid). The Hann window denominator uses the traced
 per-track valid length, matching the reference's per-track window exactly.

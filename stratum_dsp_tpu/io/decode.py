@@ -44,9 +44,11 @@ _ERR_NAMES = {
 _lib_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _lib_failed = False
+build_error = ""  # why the last native build failed, for diagnostics
 
 
 def _build_native() -> bool:
+    global build_error
     try:
         subprocess.run(
             [
@@ -61,8 +63,11 @@ def _build_native() -> bool:
             timeout=120,
         )
         return True
-    except Exception:
-        return False
+    except subprocess.CalledProcessError as e:
+        build_error = e.stderr.decode(errors="replace")[-2000:]
+    except (OSError, subprocess.TimeoutExpired) as e:
+        build_error = str(e)
+    return False
 
 
 def native_lib() -> Optional[ctypes.CDLL]:

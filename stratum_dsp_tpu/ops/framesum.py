@@ -1,8 +1,8 @@
 """Blocked frame-sum primitives for sample-domain frame features.
 
 A full-resolution ``jnp.cumsum`` over ``[B, ~8M]`` samples lowers to
-O(log T) HBM passes on TPU (measured ~15-25 ms/batch each in the silence
-and energy-flux stages). Frame grids used by the pipeline always have
+O(log T) passes over device memory (the silence and energy-flux stages
+would each pay them). Frame grids used by the pipeline always have
 ``frame_size % hop == 0``, so every frame boundary is a multiple of
 ``gcd(hop, frame_size)``: one block-sum pass plus a prefix over the tiny
 ``[B, T/blk]`` block axis yields every frame sum exactly.

@@ -1,6 +1,6 @@
 """Masked-array utilities.
 
-The TPU pipeline keeps every per-track quantity at a static padded shape and
+The batched pipeline keeps every per-track quantity at a static padded shape and
 threads per-track valid lengths/masks through the computation. These helpers
 implement the reference's variable-length scalar loops as mask-aware tensor
 ops; window clamping at array edges matches the reference's
@@ -235,8 +235,8 @@ def median_filter_1d_select_nth(x: jax.Array, half: int) -> jax.Array:
 
 def distance_to_nearest_true(mask: jax.Array, big: float = 1e9) -> jax.Array:
     """For each index i on the last axis, distance (in indices) to the nearest
-    True entry. Uses forward/backward min-plus associative scans (log-depth on
-    TPU instead of a sequential loop)."""
+    True entry. Uses forward/backward min-plus associative scans (log-depth instead
+    of a sequential loop)."""
     n = mask.shape[-1]
     d0 = jnp.where(mask, 0.0, big)
 

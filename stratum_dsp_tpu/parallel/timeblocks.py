@@ -29,13 +29,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..config import AnalysisConfig
 from ..features.period import novelty as nov
 from ..ops import masked as masked_ops
-from ..ops.stft import (
-    DFT_MATMUL_MAX,
-    extract_frames,
-    fused_windowed_basis,
-    hann_window,
-    stft_magnitude_chunk,
-)
+from ..ops.stft import chunk_magnitudes, region_len
 
 
 def pad_to_time_multiple(samples: jax.Array, n_time: int, quantum: int):
@@ -102,14 +96,15 @@ def stft_reduce_sharded(
         lengths >= frame_size, (lengths - frame_size) // hop + 1, 0
     ).astype(jnp.int32)
 
-    window = hann_window(frame_size)
-    basis = (
-        fused_windowed_basis(frame_size, window, keep_bins, bf16)
-        if frame_size <= DFT_MATMUL_MAX
-        else None
-    )
     chunk = int(min(chunk_frames, fpb))
     n_chunks = -(-fpb // chunk)
+    ext_chunk = chunk + 2 * halo_frames
+    rlen = region_len(ext_chunk, frame_size, hop, bf16, keep_bins)
+    # samples the last chunk's region reaches past the block's right context
+    # (n_chunks * chunk may exceed fpb): zero-padded, they only feed frames
+    # past fpb, which are dropped
+    ext_len = (lead + (n_chunks - 1) * chunk - halo_frames) * hop + rlen
+    right_pad = max(ext_len - (left_ctx + t_blk + right_ctx), 0)
 
     if out_template is None:
         k_bins = keep_bins if keep_bins is not None else frame_size // 2 + 1
@@ -133,7 +128,10 @@ def stft_reduce_sharded(
         recv_right = jax.lax.ppermute(block[:, :right_ctx], "time", right_perm)
         recv_left = jax.lax.ppermute(block[:, -left_ctx:], "time", left_perm) \
             if left_ctx > 0 else jnp.zeros((bloc, 0), block.dtype)
-        ext = jnp.concatenate([recv_left, block, recv_right], axis=1)
+        ext = jnp.concatenate(
+            [recv_left, block, recv_right, jnp.zeros((bloc, right_pad), block.dtype)],
+            axis=1,
+        )
         # ext frame k starts at ext sample k*hop; central frames are
         # k in [lead, lead+fpb); global frame index = ti*fpb + (k - lead)
         first_global = ti * fpb
@@ -141,9 +139,7 @@ def stft_reduce_sharded(
         # block carry: the real previous frames' spectra (zero at track start
         # because ppermute wraps — those frames are invalid and zeroed)
         if prev_frames > 0:
-            pf = extract_frames(ext[:, : (prev_frames - 1) * hop + frame_size],
-                                prev_frames, frame_size, hop)
-            pspec = stft_magnitude_chunk(pf, window, basis, keep_bins)
+            pspec = chunk_magnitudes(ext, prev_frames, frame_size, hop, keep_bins, bf16)
             pidx = first_global - prev_frames + jnp.arange(prev_frames)
             pvalid = (pidx[None, :] >= 0) & (pidx[None, :] < fc[:, None])
             pspec = jnp.where(pvalid[..., None], pspec, 0.0)
@@ -151,16 +147,11 @@ def stft_reduce_sharded(
         else:
             carry0 = carry_init(bloc)
 
-        ext_chunk = chunk + 2 * halo_frames
-
         def body(carry, ci):
             # central frames [ci*chunk, ci*chunk + chunk) of this block
             k0 = lead + ci * chunk - halo_frames  # >= 0 since lead >= halo
-            region = jax.lax.dynamic_slice(
-                ext, (0, k0 * hop), (bloc, (ext_chunk - 1) * hop + frame_size)
-            )
-            frames = extract_frames(region, ext_chunk, frame_size, hop)
-            spec = stft_magnitude_chunk(frames, window, basis, keep_bins)
+            region = jax.lax.dynamic_slice(ext, (0, k0 * hop), (bloc, rlen))
+            spec = chunk_magnitudes(region, ext_chunk, frame_size, hop, keep_bins, bf16)
             fidx = first_global + ci * chunk - halo_frames + jnp.arange(ext_chunk)
             fvalid = (fidx[None, :] >= 0) & (fidx[None, :] < fc[:, None])
             fvalid = fvalid & (fidx[None, :] < nf_total)

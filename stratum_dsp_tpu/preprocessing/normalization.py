@@ -2,11 +2,11 @@
 
 Mirror of the reference ``preprocessing/normalization.rs``. The one truly
 sequential piece — the K-weighting biquad applied per sample
-(``normalization.rs:112-175``) — is re-expressed TPU-natively: a constant-
+(``normalization.rs:112-175``) — is re-expressed for batched hardware: a constant-
 coefficient order-2 IIR has an exponentially decaying impulse response (pole
 radius ~0.867 for the K-weighting high-pass at 44.1 kHz), so a truncated-FIR
 convolution of a few hundred taps reproduces it to ~1e-8 relative error. That
-turns an 8M-step scan into one batched convolution that XLA maps onto the MXU.
+turns an 8M-step scan into one batched convolution that XLA runs as matmuls.
 """
 
 from __future__ import annotations
@@ -28,9 +28,9 @@ LUFS_BLOCK_DURATION_MS = 400.0
 
 # Impulse-response truncation: measured tail max 3.6e-17 of peak at 256 taps
 # for 44.1 kHz (decay scales ~1/sr: still <=1e-7 at 96 kHz) — far inside the
-# 1e-4 FIR-vs-IIR contract. 256 also tiles the MXU cleanly ([512]-contraction
-# split into two [256, 256] matmuls); 512 taps measured ~37 ms/16-track
-# batch, ~22% of the whole pipeline, for no accuracy benefit.
+# 1e-4 FIR-vs-IIR contract. 256 also tiles cleanly ([512]-contraction split
+# into two [256, 256] matmuls); 512 taps double the cost for no accuracy
+# benefit.
 KWEIGHT_FIR_TAPS = 256
 
 
@@ -73,8 +73,7 @@ def _k_weighting_toeplitz(sample_rate: float, blk: int = KWEIGHT_FIR_TAPS) -> np
     """Banded-Toeplitz FIR matrix ``H [2*blk, blk]``: with the signal split
     into ``blk``-sample blocks, ``y_block[i] = [x_block[i-1] | x_block[i]] @ H``.
     ``H[p, j] = h[blk + j - p]`` where in-range — this routes the 512-tap FIR
-    through the MXU instead of a single-channel conv (VPU-bound, ~4x slower
-    measured)."""
+    through a matmul instead of a single-channel conv."""
     h = k_weighting_fir(sample_rate, blk)
     H = np.zeros((2 * blk, blk), dtype=np.float32)
     p = np.arange(2 * blk)[:, None]
@@ -95,8 +94,7 @@ def k_weighting_filter(
     applied to the raw samples), so with ``bf16`` the matmul runs one bf16
     pass: ~0.4% worst-case energy error == ~0.02 dB LUFS, far inside the
     1 dB headroom logic. Off by default AND off in the production pipeline
-    (pipeline.py passes bf16=False: the bf16 pass measured perf-FLAT, see
-    BENCH_NOTES round 4); kept as an opt-in measurement knob."""
+    (pipeline.py passes bf16=False)."""
     b, t = samples.shape
     blk = KWEIGHT_FIR_TAPS
     nb = -(-t // blk)
@@ -113,8 +111,10 @@ def k_weighting_filter(
         y = jnp.matmul(xb16, Hc.astype(jnp.bfloat16), preferred_element_type=jnp.float32)
         y = y + jnp.matmul(prev16, Hp.astype(jnp.bfloat16), preferred_element_type=jnp.float32)
     else:
-        # HIGH (bf16x3) reproduces f32 to ~1e-6 relative here (audio in
-        # [-1,1], taps sum O(1)) — well inside the 1e-4 FIR-vs-IIR contract
+        # HIGH is f32 on the CPU (inside the 1e-4 FIR-vs-IIR contract) and
+        # TF32 on the GPU: ~1e-3 relative per output sample, which averages
+        # out in the 400 ms LUFS block energies (GPU-vs-CPU decision parity:
+        # chip_smoke.py phase d)
         y = jnp.matmul(xb, Hc, preferred_element_type=jnp.float32,
                        precision=jax.lax.Precision.HIGH)
         y = y + jnp.matmul(prev, Hp, preferred_element_type=jnp.float32,

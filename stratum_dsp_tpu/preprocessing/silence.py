@@ -1,7 +1,7 @@
 """Batched silence detection and trimming.
 
 Mirror of the reference ``preprocessing/silence.rs:102-279``: frame RMS with
-50% overlap, dB threshold, leading/trailing silence trim. In the batched TPU
+50% overlap, dB threshold, leading/trailing silence trim. In the batched
 design the "trim" is a per-track ``dynamic_slice`` shift (content moves to
 index 0, new valid length shrinks) so shapes stay static.
 
@@ -29,7 +29,7 @@ def frame_rms(samples: jax.Array, lengths: jax.Array, frame_size: int):
     hop = frame_size // 2
     nf = max((t - frame_size) // hop + 1, 1)
     # Blocked frame sums (ops/framesum.py): exact given zero padding beyond
-    # lengths; a per-sample cumsum here costs ~20 ms/batch on TPU.
+    # lengths; a per-sample cumsum costs O(log T) passes over the samples.
     from ..ops.framesum import frame_sumsq
 
     sums = frame_sumsq(samples, frame_size, hop, nf)

@@ -2,7 +2,7 @@
 tolerance).
 
 The full battery (``len(battery_specs())`` tracks, 326 as of round 5) runs
-on TPU via ``validation/tools/run_battery.py`` and its results are committed
+via ``validation/tools/run_battery.py`` and its results are committed
 as ``ACCURACY_r*.json``; this test pins a representative ``len(SUBSET)``-track
 subset in-suite so an accuracy regression (a knife-edge threshold drifting,
 a fold gate flipping) fails CI, mirroring the reference's exact integration

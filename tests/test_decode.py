@@ -125,6 +125,40 @@ def test_native_lib_builds():
     assert lib.sa_ffmpeg_available() in (0, 1)
 
 
+def test_native_lib_builds_without_ffmpeg_headers(tmp_path, signal16):
+    """On a host without the libav* headers the library still builds: the
+    ffmpeg formats report unavailable, WAV decodes as before."""
+    import ctypes
+    import subprocess
+
+    from stratum_dsp_tpu.io import decode
+
+    src = decode._NATIVE_DIR
+    so = tmp_path / "libstub.so"
+    subprocess.run(
+        ["g++", "-O1", "-shared", "-fPIC", "-std=c++17", "-DSTRATUM_NO_FFMPEG",
+         "-o", str(so), str(src / "stratum_audio.cpp"), str(src / "flac_decoder.cpp"),
+         str(src / "ffmpeg_decoder.cpp"), "-ldl", "-lpthread"],
+        check=True, capture_output=True, timeout=300,
+    )
+    lib = ctypes.CDLL(str(so))
+    lib.sa_ffmpeg_available.restype = ctypes.c_int
+    assert lib.sa_ffmpeg_available() == 0
+    wav = str(tmp_path / "x.wav")
+    _write_wav(wav, signal16, SAMPLE_RATE)
+    out = ctypes.POINTER(ctypes.c_float)()
+    n, sr = ctypes.c_int64(), ctypes.c_int()
+    lib.sa_decode_file.restype = ctypes.c_int
+    lib.sa_decode_file.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
+    ]
+    assert lib.sa_decode_file(wav.encode(), 0, 0, ctypes.byref(out), ctypes.byref(n),
+                              ctypes.byref(sr)) == 0
+    assert n.value == len(signal16) and sr.value == SAMPLE_RATE
+
+
 def test_mp3_ogg_roundtrip(tmp_path, signal16):
     """Real MP3/OGG files through the libmpg123/libvorbisfile decode paths.
 

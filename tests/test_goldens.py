@@ -27,7 +27,7 @@ from stratum_dsp_tpu.testing import SAMPLE_RATE, c_major_scale, kick_pattern, pa
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 # Goldens pin the f32 ALGORITHM against the independent numpy ports; the
-# bf16 MXU input mode is a TPU precision trade with its own end-to-end
+# bf16 STFT input mode is a precision trade with its own end-to-end
 # contract (tests/test_stft.py::test_bf16_pipeline_parity), so it is
 # disabled here — at bf16 input rounding the novelty SNR sits ~33 dB,
 # below the 35 dB algorithm-parity bar by design, not by drift.

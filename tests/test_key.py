@@ -93,12 +93,12 @@ def test_stable_argmax_breaks_dust_ties_to_first_index():
     """The best major and best minor key tie at EXACTLY 1.2 by construction
     (per-mode normalization + self-bonus), so the mode decision is the
     tie-break: first index (major) must win even when accumulation dust
-    makes the minor side epsilon-larger (measured ~2e-7 on TPU — the
-    C-major scale fixture flipped to Am through the full pipeline there
-    before scoring.stable_argmax)."""
+    makes the minor side epsilon-larger (~2e-7 relative from f32
+    accumulation order, enough to flip the C-major scale fixture to Am
+    without scoring.stable_argmax)."""
     scores = np.full((1, 24), 0.5, np.float32)
     scores[0, 0] = 1.2          # C major
-    scores[0, 21] = 1.2 + 2e-7  # A minor, epsilon above (TPU-style dust)
+    scores[0, 21] = 1.2 + 2e-7  # A minor, epsilon above (accumulation dust)
     idx, conf = scoring.best_key_confidence(jnp.asarray(scores))
     assert int(idx[0]) == 0  # major wins the dust-tie
     # a REAL separation (> TIE_EPS) must still win outright

@@ -3,7 +3,7 @@ item 4): the 2-process x 4-virtual-CPU-device smoke run, subprocess-spawned
 so the suite's own JAX backend is untouched, plus a slow-marked
 production-length (180 s) 2-D mesh dryrun.
 
-The reference has no distributed runtime to test; these cover the TPU
+The reference has no distributed runtime to test; these cover the
 framework's multi-host additions (scripts/multihost_smoke.py runbook).
 """
 
@@ -51,8 +51,8 @@ def test_multihost_two_process_smoke():
 )
 def test_dryrun_2d_production_length():
     """The 2-D (tracks, time) mesh at the PRODUCTION 180 s track length on
-    the virtual CPU mesh (VERDICT r3: the 3-minute shape must be exercised
-    off-TPU, not only the 24 s variant)."""
+    the virtual CPU mesh (the 3-minute shape must be exercised without an
+    accelerator, not only the 24 s variant)."""
     env = dict(
         os.environ,
         JAX_PLATFORMS="cpu",

@@ -1,12 +1,12 @@
-"""Pallas kernels (interpret mode) vs their XLA-scan references."""
+"""Sequential decoders of the beat grid (downbeat walk, Viterbi) vs plain
+loop references."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
-from stratum_dsp_tpu.ops.downbeats_pallas import downbeat_mask
-from stratum_dsp_tpu.ops.viterbi_pallas import viterbi_decode, _transition_matrix
+from stratum_dsp_tpu.features.beat import hmm
+from stratum_dsp_tpu.features.beat.grid import detect_downbeats
 
 
 def test_downbeat_kernel_matches_scan(rng):
@@ -14,8 +14,13 @@ def test_downbeat_kernel_matches_scan(rng):
     times = np.sort(rng.uniform(0, 30, (b, n)).astype(np.float32), axis=-1)
     n_beats = np.asarray([64, 40, 0], np.int32)
     bar = np.asarray([2.0, 1.5, 2.0], np.float32)
+    # 4/4 (sig index 0): bar = 4 beats of 60/bpm seconds
+    bpm = (4 * 60.0 / bar).astype(np.float32)
 
-    got = np.asarray(downbeat_mask(jnp.asarray(times), jnp.asarray(n_beats), jnp.asarray(bar), True))
+    got = np.asarray(jax.jit(detect_downbeats)(
+        jnp.asarray(times), jnp.asarray(n_beats), jnp.asarray(bpm),
+        jnp.zeros((b,), jnp.int32),
+    ))
 
     for bi in range(b):
         last, any_db = 0.0, False
@@ -31,83 +36,12 @@ def test_downbeat_kernel_matches_scan(rng):
         np.testing.assert_array_equal(got[bi], ref)
 
 
-@pytest.mark.parametrize("emit_stride2,emit_onset", [(True, True), (False, False)])
-def test_fused_novelty_kernel_matches_xla_reducer(rng, monkeypatch, emit_stride2, emit_onset):
-    """The fused novelty kernel (ops/novelty_pallas.py) must reproduce the
-    XLA reducer's outputs (same keys, <1e-5 relative) for the default config
-    and for the aux-pass variant (no stride-2 / no onset flux)."""
-    from stratum_dsp_tpu.config import AnalysisConfig
-    from stratum_dsp_tpu.features.period import novelty as nov
-
-    cfg = AnalysisConfig()
-    sr, frame_size = 44100, cfg.frame_size
-    n_bins = frame_size // 2 + 1
-    b, c = 2, 260  # deliberately not a TILE multiple (exercises padding)
-    spec = jnp.asarray(rng.random((b, c, n_bins)).astype(np.float32) * 3.0)
-    carry0 = jnp.asarray(rng.random((b, 2, n_bins)).astype(np.float32))
-    fidx = jnp.arange(c)
-    fvalid = jnp.ones((b, c), bool)
-
-    monkeypatch.setenv("STRATUM_NO_PALLAS_NOVELTY", "1")
-    red_x, _, _ = nov.make_bpm_reducer(
-        cfg, sr, frame_size, emit_stride2=emit_stride2, emit_onset_flux=emit_onset
-    )
-    outs_x, carry_x = red_x(spec, fidx, fvalid, carry0)
-
-    monkeypatch.delenv("STRATUM_NO_PALLAS_NOVELTY")
-    monkeypatch.setenv("STRATUM_FORCE_PALLAS_NOVELTY", "1")
-    red_p, _, _ = nov.make_bpm_reducer(
-        cfg, sr, frame_size, emit_stride2=emit_stride2, emit_onset_flux=emit_onset
-    )
-    outs_p, carry_p = red_p(spec, fidx, fvalid, carry0)
-
-    assert set(outs_x) == set(outs_p)
-    for k in outs_x:
-        a, p = np.asarray(outs_x[k]), np.asarray(outs_p[k])
-        assert a.shape == p.shape, k
-        rel = np.max(np.abs(a - p)) / (np.max(np.abs(a)) + 1e-12)
-        assert rel < 1e-5, (k, rel)
-    np.testing.assert_array_equal(np.asarray(carry_x), np.asarray(carry_p))
-
-
-def test_polyphase_stage2_kernel_matches_xla(rng, monkeypatch):
-    """The fused polyphase stage-2 kernel (ops/polyphase_pallas.py) must
-    match the XLA twiddle/box-sum/mix formulation to within the bf16-S
-    rounding the XLA path applies (the kernel keeps S in f32) — ~0.4%
-    frame-normalized — and stay within the documented periodic-vs-symmetric
-    Hann contract against the direct DFT."""
-    from stratum_dsp_tpu.ops import stft
-
-    monkeypatch.setenv("STRATUM_FORCE_POLYPHASE", "1")
-    b, frame, hop, keep = 2, 8192, 512, 930
-    ext = 120  # not a tile multiple (exercises padding)
-    ebp = stft.poly_num_blocks(ext, frame, hop)
-    t = ebp * hop + frame
-    x = jnp.asarray(rng.standard_normal((b, t)).astype(np.float32) * 0.3)
-
-    monkeypatch.setenv("STRATUM_NO_PALLAS_POLY2", "1")
-    ref = np.asarray(stft.polyphase_chunk_magnitudes(x, 0, ext, frame, hop, keep))
-    monkeypatch.delenv("STRATUM_NO_PALLAS_POLY2")
-    monkeypatch.setenv("STRATUM_FORCE_PALLAS_POLY2", "1")
-    got = np.asarray(stft.polyphase_chunk_magnitudes(x, 0, ext, frame, hop, keep))
-
-    assert got.shape == ref.shape
-    scale = np.max(ref, axis=-1, keepdims=True) + 1e-9
-    assert np.max(np.abs(got - ref) / scale) < 1e-2
-
-    w = stft.hann_window(frame)
-    frames = stft.extract_frames(x[:, : (ext - 1) * hop + frame], ext, frame, hop)
-    direct = np.asarray(stft.stft_magnitude_chunk(frames, w, None, keep))
-    scale2 = np.max(direct, axis=-1, keepdims=True) + 1e-9
-    assert np.max(np.abs(got - direct) / scale2) < 2e-2
-
-
 def test_viterbi_kernel_matches_reference(rng):
     b, t = 2, 128
     em = rng.uniform(0.01, 1.0, (b, t)).astype(np.float32)
-    got = np.asarray(viterbi_decode(jnp.asarray(em), True))
+    got = np.asarray(jax.jit(hmm.viterbi_decode)(jnp.asarray(em)))
 
-    trans = _transition_matrix()
+    trans = np.asarray(hmm.transition_matrix(), np.float32)
     for bi in range(b):
         v = np.full(5, 1 / 5, np.float32) * em[bi, 0]
         bps = np.zeros((t, 5), np.int64)
@@ -120,3 +54,22 @@ def test_viterbi_kernel_matches_reference(rng):
         for i in range(t - 1, 0, -1):
             states[i - 1] = bps[i][states[i]]
         np.testing.assert_array_equal(got[bi], states)
+
+
+def test_viterbi_scan_eliminated_when_states_unused():
+    """The pipeline discards the decoded states (grid.py unpacks
+    ``beats, _states``), so XLA must drop both Viterbi scans: the compiled
+    beats-only program has two fewer while loops than the one that returns
+    the states."""
+    b, k, mb = 2, 32, 64
+    bpm = jnp.full((b,), 120.0)
+    onsets = jnp.sort(jnp.linspace(0.0, 15.0, k))[None].repeat(b, 0)
+    valid = jnp.ones((b, k), bool)
+
+    def n_while(fn):
+        hlo = jax.jit(fn).lower(bpm, onsets, valid).compile().as_text()
+        return hlo.count(" while(")
+
+    with_states = n_while(lambda *a: hmm.track_beats(*a, mb))
+    beats_only = n_while(lambda *a: hmm.track_beats(*a, mb)[0])
+    assert with_states - beats_only == 2, (with_states, beats_only)

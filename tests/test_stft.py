@@ -17,7 +17,7 @@ def naive_stft(x: np.ndarray, frame_size: int, hop: int) -> np.ndarray:
     return np.abs(np.fft.rfft(frames, axis=-1)).astype(np.float32)
 
 
-def collect_spec(samples, lengths, frame_size, hop, chunk_frames=64):
+def collect_spec(samples, lengths, frame_size, hop, chunk_frames=64, bf16=False):
     """Materialize the streamed magnitudes for testing."""
 
     def reducer(spec, fidx, fvalid, carry):
@@ -31,6 +31,7 @@ def collect_spec(samples, lengths, frame_size, hop, chunk_frames=64):
         reducer,
         lambda b: jnp.zeros((b,)),
         chunk_frames=chunk_frames,
+        bf16=bf16,
     )
     return np.asarray(outs["spec"]), np.asarray(frame_counts)
 
@@ -70,32 +71,35 @@ def test_extract_frames_matches_gather():
         np.testing.assert_array_equal(fast[:, j], region[:, j * hop : j * hop + frame])
 
 
-def test_bf16_stft_error_bound():
-    # The bf16 fused basis rounds inputs to ~2^-8 relative; assert the
-    # magnitude error stays well under the smallest decision margins the
-    # downstream estimators rely on (band energies, flux thresholds).
-    x = kick_pattern(124.0, 3.0)
+def test_polyphase_key_stft_energy_contract():
+    """The bf16 polyphase key STFT (8192/512, 930 kept bins) vs a float64
+    periodic-Hann rfft (its window; the symmetric-window gap is pinned by
+    test_polyphase_stft_reduce_end_to_end): per-frame energy within 1% on
+    every frame louder than -40 dB of the loudest frame, and max |err| within
+    2% of the peak. Quieter frames are excluded: there the bf16 rounding of
+    sidelobes that the 3-bin Hann mix cancels dominates the relative error."""
+    x = kick_pattern(124.0, 6.0)
     samples, lengths = pad_batch([x])
+    assert stft_mod.stft_path(8192, 512, True, 930) == "polyphase"
 
     def reducer(spec, fidx, fvalid, carry):
         return {"spec": spec}, carry
 
-    outs = {}
-    for bf16 in (False, True):
-        o, _, counts = stft_mod.stft_reduce(
-            jnp.asarray(samples), jnp.asarray(lengths), 2048, 512,
-            reducer, lambda b: jnp.zeros((b,)), chunk_frames=64, bf16=bf16,
-        )
-        outs[bf16] = np.asarray(o["spec"])[0, : int(counts[0])]
-    ref, got = outs[False], outs[True]
-    scale = np.abs(ref).max()
-    assert scale > 0
-    # max abs error relative to the spectrogram peak
-    assert np.abs(got - ref).max() / scale < 2e-2
-    # per-frame energy within 1%
-    e_ref = (ref**2).sum(axis=-1)
-    e_got = (got**2).sum(axis=-1)
-    np.testing.assert_allclose(e_got, e_ref, rtol=1e-2)
+    o, _, counts = stft_mod.stft_reduce(
+        jnp.asarray(samples), jnp.asarray(lengths), 8192, 512, reducer,
+        lambda b: jnp.zeros((b,)), chunk_frames=64, keep_bins=930, bf16=True,
+    )
+    got = np.asarray(o["spec"])[0, : int(counts[0])].astype(np.float64)
+    i = np.arange(8192)
+    w = 0.5 - 0.5 * np.cos(2 * np.pi * i / 8192)
+    n = int(counts[0])
+    frames = np.stack([x[j * 512 : j * 512 + 8192] * w for j in range(n)])
+    ref = np.abs(np.fft.rfft(frames, axis=-1))[:, :930]
+    assert np.abs(got - ref).max() / ref.max() < 2e-2
+    e_ref, e_got = (ref**2).sum(-1), (got**2).sum(-1)
+    loud = e_ref >= 1e-4 * e_ref.max()
+    assert loud.mean() > 0.4
+    np.testing.assert_allclose(e_got[loud], e_ref[loud], rtol=1e-2)
 
 
 def test_bf16_pipeline_parity():
@@ -141,23 +145,22 @@ def test_mel_filterbank_shape_and_coverage():
 
 
 def test_polyphase_matches_periodic_hann_dft():
-    """The polyphase shared-block path (the TPU bf16 key-STFT fast path) must
-    reproduce the periodic-Hann windowed DFT exactly in f32, including
-    non-R-aligned ext, nonzero halo start offsets, and the 3-bin mix edge
-    bins. Exercised here directly (the backend gate keeps it off on CPU, so
-    without this test no default CI run would compile the path at all)."""
+    """The polyphase shared-block path (the bf16 key STFT) must reproduce the
+    periodic-Hann windowed DFT exactly in f32, including non-R-aligned ext,
+    a region that does not start at the track start, and the 3-bin mix edge
+    bins."""
     import jax
 
     rng = np.random.default_rng(3)
     B, N, H, KB = 2, 2048, 128, 300  # R = 16
-    ext, start = 53, 48  # start % R == 0 per the contract; ext arbitrary
+    ext, start = 53, 37  # any region start, any ext
     need = (start + stft_mod.poly_num_blocks(ext, N, H) + 1) * H
     x = rng.standard_normal((B, need)).astype(np.float32)
 
     mag = np.asarray(
         jax.jit(
             lambda s: stft_mod.polyphase_chunk_magnitudes(
-                s, start, ext, N, H, KB, bf16=False
+                s[:, start * H :], ext, N, H, KB, bf16=False
             )
         )(jnp.asarray(x))
     )
@@ -174,21 +177,15 @@ def test_polyphase_matches_periodic_hann_dft():
 
 
 def test_polyphase_stft_reduce_end_to_end():
-    """stft_reduce with polyphase forced on (halo + multi-chunk + per-track
-    lengths) vs the direct symmetric-Hann path: magnitudes agree to the
+    """stft_reduce on the bf16 polyphase path (multi-chunk + per-track
+    lengths) vs the f32 symmetric-Hann rfft path: magnitudes agree to the
     periodic-vs-symmetric Hann O(1/N) bound, frame validity masks identical."""
-    import os
-
     x = kick_pattern(123.0, 4.0)
     y = kick_pattern(97.0, 3.0)
     samples, lengths = pad_batch([x, y])
     frame, hop = 8192, 512
 
-    os.environ["STRATUM_FORCE_POLYPHASE"] = "1"
-    try:
-        spec_p, counts_p = collect_spec(samples, lengths, frame, hop, chunk_frames=48)
-    finally:
-        del os.environ["STRATUM_FORCE_POLYPHASE"]
+    spec_p, counts_p = collect_spec(samples, lengths, frame, hop, chunk_frames=48, bf16=True)
     spec_d, counts_d = collect_spec(samples, lengths, frame, hop, chunk_frames=48)
 
     np.testing.assert_array_equal(counts_p, counts_d)

@@ -49,12 +49,13 @@ def test_sharded_features_match_unsharded():
 
 
 def test_full_pipeline_2d_mesh_matches_unsharded():
-    """Full default pipeline on a (tracks, time) mesh == unsharded results."""
+    """Full default pipeline on a (tracks, time) mesh == unsharded results;
+    the ahead-of-time form runs the same program."""
     import jax
     from jax.sharding import Mesh
     from stratum_dsp_tpu.analysis.pipeline import PipelineCaps, analyze_batch_arrays
     from stratum_dsp_tpu.parallel.mesh import (
-        analyze_batch_sharded, make_mesh, pad_batch_for_mesh,
+        analyze_batch_sharded, compile_sharded, make_mesh, pad_batch_for_mesh,
     )
     from stratum_dsp_tpu.testing import kick_pattern, pad_batch
 
@@ -70,11 +71,14 @@ def test_full_pipeline_2d_mesh_matches_unsharded():
     out_ref = jax.jit(
         analyze_batch_arrays, static_argnames=("cfg", "sample_rate", "caps")
     )(jnp.asarray(samples_p), jnp.asarray(lengths), cfg=cfg, sample_rate=44100, caps=caps)
+    compiled, args = compile_sharded(samples_p, lengths, cfg, 44100, caps, mesh)
+    out_aot = compiled(*args)
 
     for k in ("bpm", "bpm_confidence", "key_idx", "key_confidence",
               "grid_stability", "ok", "multi_res_used"):
         ref, got = np.asarray(out_ref[k]), np.asarray(out_sh[k])
         np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-5, err_msg=k)
+        np.testing.assert_array_equal(np.asarray(out_aot[k]), got, err_msg=k)
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")

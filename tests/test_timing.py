@@ -67,8 +67,7 @@ from stratum_dsp_tpu.analysis.timing import stage_timings
 from stratum_dsp_tpu.config import AnalysisConfig
 from stratum_dsp_tpu.testing import kick_pattern, pad_batch
 samples, lengths = pad_batch([kick_pattern(126.0, 3.0)])
-t = stage_timings(samples, lengths, AnalysisConfig(), 44100, reps=1,
-                  perturb=False)
+t = stage_timings(samples, lengths, AnalysisConfig(), 44100, reps=1)
 print("STAGE_JSON:" + json.dumps(t))
 """ % os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, JAX_PLATFORMS="cpu")
